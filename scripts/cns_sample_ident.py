@@ -7,17 +7,18 @@ Usage: python scripts/cns_sample_ident.py REF.fa OURS.fa|CKPT.npz
 """
 
 import argparse
-import difflib
+import os
 import sys
 
 import numpy as np
 
-BASES = "ACGT"
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from smartdenovo_tpu.utils.stats import sampled_chunk_identity  # noqa: E402
 
 
 def load_seq(path):
     if path.endswith(".npz"):
-        sys.path.insert(0, "/root/repo")
         from smartdenovo_tpu.data.readbank import codes_to_seq
 
         z = np.load(path, allow_pickle=True)
@@ -27,10 +28,6 @@ def load_seq(path):
         if not line.startswith(">"):
             seqs.append(line.strip())
     return "".join(seqs), None
-
-
-def revcomp(s):
-    return s[::-1].translate(str.maketrans("ACGT", "TGCA"))
 
 
 def main():
@@ -44,28 +41,10 @@ def main():
     ours, it = load_seq(args.ours)
     print(f"ref {len(ref)} bp, ours {len(ours)} bp"
           + (f" (checkpoint after iteration {it})" if it else ""))
-    rng = np.random.default_rng(11)
-    idents, misses = [], 0
-    for beg in sorted(rng.integers(0, max(1, len(ours) - args.chunk),
-                                   args.chunks).tolist()):
-        piece = ours[beg: beg + args.chunk]
-        at = ref.find(piece[:48])
-        if at < 0:
-            rc = revcomp(piece)
-            at = ref.find(rc[:48])
-            if at >= 0:
-                piece = rc
-        if at < 0:
-            misses += 1
-            continue
-        seg = ref[max(0, at - 300): at + args.chunk + 300]
-        sm = difflib.SequenceMatcher(None, seg, piece, autojunk=False)
-        m = sum(b.size for b in sm.get_matching_blocks())
-        idents.append(m / len(piece))
-    idents = np.array(idents)
-    print(f"sampled {len(idents)} chunks ({misses} anchor misses): "
-          f"mean {idents.mean():.5f}, min {idents.min():.5f}, "
-          f"median {np.median(idents):.5f}")
+    r = sampled_chunk_identity(ref, ours, args.chunks, args.chunk)
+    print(f"sampled {r['chunks']} chunks ({r['misses']} anchor misses): "
+          f"mean {r['mean']:.5f}, min {r['min']:.5f}, "
+          f"median {r['median']:.5f}")
 
 
 if __name__ == "__main__":

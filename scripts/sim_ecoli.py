@@ -20,10 +20,7 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-import numpy as np
-
-from smartdenovo_tpu.utils.simulate import (random_genome, simulate_reads,
-                                            write_sim_fasta)
+from smartdenovo_tpu.utils.simulate import ecoli_read_set, write_sim_fasta
 
 
 def main():
@@ -33,10 +30,7 @@ def main():
     glen = int(os.environ.get("ECOLI_GENOME", 4_600_000))
     cov = float(os.environ.get("ECOLI_COV", 18))
     t0 = time.time()
-    rng = np.random.default_rng(46_000_000)
-    genome = random_genome(rng, glen)
-    names, seqs = simulate_reads(genome, coverage=cov, mean_len=9500,
-                                 err=0.13, seed=18_460, circular=True)
+    genome, names, seqs = ecoli_read_set(glen, cov)
     write_sim_fasta(out, names, seqs)
     from smartdenovo_tpu.data.readbank import codes_to_seq
     from smartdenovo_tpu.io.fasta import write_fasta

@@ -1,13 +1,13 @@
-"""smartdenovo_tpu — a TPU-native de-novo assembler for noisy long reads.
+"""smartdenovo_tpu — a device-native de-novo assembler for noisy long reads.
 
 A from-scratch reimplementation of the capabilities of SMARTdenovo
-(ruanjue/smartdenovo, reference at /root/reference): a correction-free
-Overlap-Layout-Consensus pipeline for PacBio / Oxford Nanopore reads.
+(ruanjue/smartdenovo): a correction-free Overlap-Layout-Consensus
+pipeline for PacBio / Oxford Nanopore reads.
 
-Architecture (TPU-first, not a port):
+Architecture (accelerator-first, not a port):
 
 - ``data``     packed read store; batched device tensors of 2-bit bases
-- ``ops``      JAX/XLA/Pallas device compute: homopolymer-compressed k-mer
+- ``ops``      JAX/XLA device compute: homopolymer-compressed k-mer
                ("zmer") seeding, sorted-index candidate scan, dot-matrix
                alignment (sorts + scans + small dense chain DP), batched
                banded Smith-Waterman wavefront kernels

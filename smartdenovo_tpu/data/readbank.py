@@ -1,4 +1,4 @@
-"""Packed long-read store — the TPU-native BaseBank.
+"""Packed long-read store — the device-side BaseBank.
 
 The reference keeps reads as a 2-bit packed BaseBank plus a name table
 (reference dna.h BaseBank, wtzmo.c:88-92 pbread_t).  Here reads live as a

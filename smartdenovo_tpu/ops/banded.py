@@ -1,6 +1,6 @@
 """Anchor-guided banded alignment — batched shifting-band DP on device.
 
-TPU-native equivalent of the reference's scalar shifting-band DP
+Batched device equivalent of the reference's scalar shifting-band DP
 (kswx.h:101-232 kswx_extend_align_shift_core) and CIGAR-guided variable
 band refine (kswx.h:483-659): instead of adapting the band to the best
 cell per row (serial), the band center per row is *precomputed* from

@@ -1,6 +1,6 @@
 """Candidate selection — batched device kernel.
 
-TPU-native replacement for the k-way heap-merge candidate scan
+Batched device replacement for the k-way heap-merge candidate scan
 `query_wtzmo` (reference wtzmo.c:433-573).  Instead of merging posting
 lists with a heap per read, a whole batch of query reads is processed at
 once: posting ranges come from vectorised binary search into the sorted
@@ -54,7 +54,7 @@ def _binary_search_rows(table: jnp.ndarray, row_ids: jnp.ndarray, values: jnp.nd
 
 @functools.partial(
     jax.jit, static_argnames=("budget", "ncand", "kovl", "len_ratio",
-                              "probe_budget", "segk", "stage")
+                              "probe_budget")
 )
 def scan_candidates(
     qkmer: jnp.ndarray,   # [Q, L] uint32 canonical kmers (compressed-pos space)
@@ -76,11 +76,6 @@ def scan_candidates(
     kovl: int,
     len_ratio: float = 1.2,
     probe_budget: int = 0,   # 0 = no probe compaction (Q*L probes)
-    segk: str = "fill",      # "pallas" = ops/sseg.py streaming reduce of
-                             # the (q, cand, dir) event runs (TPU); "fill"
-                             # = XLA budget-wide segment scatters
-    stage: str = "full",     # profiling stop point: probe | expand |
-                             # sort | seg | full
 ):
     """Returns (cands [Q, ncand] int32 (-1 pad, ol-desc order), ols [Q, ncand],
     total expansion, total probes)."""
@@ -121,9 +116,6 @@ def scan_candidates(
     start = jnp.searchsorted(idx_kmers, flat_k, side="left").astype(jnp.int32)
     end = jnp.searchsorted(idx_kmers, flat_k, side="right").astype(jnp.int32)
     cnt = jnp.where(p_live, end - start, 0)
-    if stage == "probe":
-        z = jnp.zeros((Q, ncand), jnp.int32)
-        return z + cnt[::128].sum(), z, jnp.int32(0), probe_total
     # fixed-budget expansion of posting ranges (sorted scatter + cummax,
     # avoiding slow per-slot binary search)
     from .flatops import expand_ranges
@@ -146,10 +138,6 @@ def scan_candidates(
     )
     if suppress.shape[1] > 0:
         keep &= ~_binary_search_rows(suppress, q_local, cand, suppress_cnt)
-    if stage == "expand":
-        z = jnp.zeros((Q, ncand), jnp.int32)
-        return (z + cand[::128].sum() + keep[::128].sum(), z, total,
-                probe_total)
     # sort events by (query, candidate*2+dir, qpos); dead events to the
     # end.  (q, cand, dir) packs into ONE key when Q*(2R+2) fits int32
     # (R, Q are static) — the sort then carries 2 lanes instead of 4
@@ -159,9 +147,6 @@ def scan_candidates(
     kq = jnp.where(keep, q_local * R2 + cand * 2 + cdir, INT32_MAX)
     k3s = jnp.where(keep, (qpos << 8) | jnp.minimum(span, 255), INT32_MAX)
     kq, k3s = jax.lax.sort((kq, k3s), num_keys=2)
-    if stage == "sort":
-        z = jnp.zeros((Q, ncand), jnp.int32)
-        return z + kq[::128].sum() + k3s[::128].sum(), z, total, probe_total
     live = kq != INT32_MAX
     qpos_s = jnp.where(live, k3s >> 8, 0)
     span_s = jnp.where(live, k3s & 0xFF, 0)
@@ -173,45 +158,18 @@ def scan_candidates(
         jnp.clip(jnp.minimum(span_s, qpos_s + span_s - prev_end), 0)
     )
     contrib = jnp.where(live, contrib, 0)
-    # groups are bounded by the distinct (q, cand, dir) key space, so the
-    # group table is far narrower than the event budget; the +2048 keeps
-    # every record clear of the kernel's overlap-write slack
-    GB = (Q * R2 + 2048 + 127) // 128 * 128
-    if segk == "pallas" and GB <= budget:
-        # ONE streaming pass (ops/sseg.py) replaces both budget-wide
-        # segment scatters; records arrive compacted in key order
-        from .sseg import seg_reduce_compact
-
-        zz = jnp.zeros_like(kq)
-        out8, g_total = seg_reduce_compact(
-            seg_new.astype(jnp.int32),
-            jnp.stack([contrib, jnp.where(live, kq, INT32_MAX),
-                       zz, zz, zz, zz, zz, zz]),
-            ops=("sum", "first", "first", "first", "first", "first",
-                 "first", "first"),
-            out_budget=GB)
-        gcol = jnp.arange(GB, dtype=jnp.int32)
-        gmask = gcol < g_total
-        seg_ol0 = jnp.where(gmask, out8[0], 0)
-        seg_kq = jnp.where(gmask & (out8[1] != INT32_MAX), out8[1],
-                           INT32_MAX)
-        n_seg = GB
-    else:
-        seg_id = jnp.cumsum(seg_new.astype(jnp.int32)) - 1
-        n_seg = budget  # upper bound
-        seg_ol0 = jax.ops.segment_sum(contrib, seg_id, num_segments=n_seg)
-        first_idx = jnp.where(seg_new & live, seg_id, n_seg)
-        seg_kq = (jnp.full(n_seg + 1, INT32_MAX, jnp.int32)
-                  .at[first_idx].set(kq, mode="drop")[:n_seg])
-    if stage == "seg":
-        z = jnp.zeros((Q, ncand), jnp.int32)
-        return (z + seg_ol0[::64].sum() + seg_kq[::64].sum(), z, total,
-                probe_total)
+    # one group per (q, cand, dir) run: reduce the covered length and keep
+    # the run's key
+    seg_id = jnp.cumsum(seg_new.astype(jnp.int32)) - 1
+    n_seg = budget  # upper bound
+    seg_ol0 = jax.ops.segment_sum(contrib, seg_id, num_segments=n_seg)
+    first_idx = jnp.where(seg_new & live, seg_id, n_seg)
+    seg_kq = (jnp.full(n_seg + 1, INT32_MAX, jnp.int32)
+              .at[first_idx].set(kq, mode="drop")[:n_seg])
     # merge the two strands of each (q, cand) by max ol (wtzmo.c:525-535):
     # strands are adjacent in the packed key space (kq >> 1 strips dir),
     # so every merge group has <= 2 SORTED-adjacent entries — pure
-    # elementwise neighbour max, no budget-wide scatters (the round-4
-    # segment_max + 2 scatter path cost ~300 ms/batch at this width)
+    # elementwise neighbour max, no budget-wide scatters
     seg_qc = jnp.where(seg_kq == INT32_MAX, INT32_MAX, seg_kq >> 1)
     nxt_qc = jnp.concatenate([seg_qc[1:], jnp.full(1, INT32_MAX, jnp.int32)])
     nxt_ol = jnp.concatenate([seg_ol0[1:], jnp.zeros(1, jnp.int32)])

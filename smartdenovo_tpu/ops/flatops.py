@@ -1,10 +1,9 @@
 """Flat-array primitives shared by the overlap kernels.
 
-TPU performance note: random-index gathers (binary-search loops) are the
-slowest primitive on TPU — ~100-200M lookups/s — while sorted scatters
-and associative scans run at HBM bandwidth.  `expand_ranges` therefore
-maps output slots back to their source ranges with one sorted scatter +
-a cummax forward-fill instead of a per-slot binary search.
+Design note: a per-slot binary search is log(n) dependent random
+gathers, while sorted scatters and associative scans stream memory.
+`expand_ranges` therefore maps output slots back to their source ranges
+with one sorted scatter + a cummax forward-fill instead.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """CIGAR-guided refine alignment — batched affine banded DP on device.
 
-TPU-native equivalent of `kswx_refine_alignment` (reference
+Batched device equivalent of `kswx_refine_alignment` (reference
 kswx.h:483-659): re-run a *global* affine-gap DP inside a band around a
 prior alignment path, with full traceback, producing a polished CIGAR
 and exact mat/mis/ins/del stats.  This is the kernel behind wtzmo's `-n`

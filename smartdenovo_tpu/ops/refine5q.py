@@ -1,6 +1,6 @@
 """Quality-aware refine alignment — batched banded min-cost DP on device.
 
-TPU-native equivalent of `kswx_refine_affine_alignment_5q` (reference
+Batched device equivalent of `kswx_refine_affine_alignment_5q` (reference
 kswx.h:871-1075), the wtcns refine pass used when the layout carries f5q
 7-track qualities (wtcns.c:372-381).  Costs (uint8, smaller = better):
 

@@ -1,6 +1,6 @@
 """Batched banded alignment DP — anti-diagonal wavefront on device.
 
-TPU-native replacement for the reference's DP cell loops (ksw.c SSE2
+Batched device replacement for the reference's DP cell loops (ksw.c SSE2
 Smith-Waterman, kswx.h:101-232 banded extension, kswx.h:483-659 refine).
 Instead of per-pair SIMD lanes over one sequence, whole *batches* of
 small alignment sub-problems run as one wavefront: sequences are cut at

@@ -282,7 +282,7 @@ def overlap_gparts(rb: ReadBank, params=None, progress: bool = True,
             log("WARNING: gpass %d expansion %d exceeds budget %d; matches "
                 "dropped — raise -G or budgets", g + 1,
                 int(tot[:, 1].max()), cross_budget)
-        if int(tot[:, 2].max()) > nbk_budget - 2048:
+        if int(tot[:, 2].max()) > nbk_budget:
             log("WARNING: gpass %d block mass %d exceeds merge budget %d; "
                 "overlaps may be dropped", g + 1, int(tot[:, 2].max()),
                 nbk_budget)

@@ -3,7 +3,7 @@
 The reference scales to clusters by running fully independent jobs per
 node with a REPLICATED index (-P/-p, README-tools.md:112-117) and by
 splitting the index into sequential passes when it exceeds one node's
-memory (-G, wtzmo.c:1431-1463).  The TPU-native design does both at
+memory (-G, wtzmo.c:1431-1463).  The device-native design does both at
 once and keeps one global program:
 
   mesh (rd, idx) over ALL processes' devices, laid out so the idx axis
@@ -49,7 +49,7 @@ def init_multihost(coordinator: str, num_processes: int, process_id: int,
 
     On CPU test rigs set local_devices to force
     --xla_force_host_platform_device_count (must run before jax device
-    init).  On real TPU pods the runtime discovers devices itself."""
+    init).  On accelerator hosts the runtime discovers devices itself."""
     import os
 
     if local_devices:

@@ -419,7 +419,7 @@ def overlap_sharded(rb, params=None, mesh: Mesh | None = None,
             log("WARNING: sharded batch expansion %d exceeds budget %d; "
                 "matches dropped — raise batch_q shards or budgets",
                 int(tmax[1]), cross_budget)
-        if tmax[2] > nbk_budget - 2048:
+        if tmax[2] > nbk_budget:
             log("WARNING: sharded batch block mass %d exceeds merge budget "
                 "%d; overlaps may be dropped", int(tmax[2]), nbk_budget)
         NP = Q * A * 2

@@ -1,14 +1,17 @@
 """On-demand builder + ctypes loader for the native (C++) host components.
 
-The runtime around the TPU compute path is native where the reference's
-is (SURVEY.md §2.4): the DAG consensus graph engine lives in
-native/dagcns.cpp.  Shared objects are compiled with g++ on first use
-and cached next to the sources, keyed by source mtime.
+The runtime around the device compute path is native where the
+reference's is (SURVEY.md §2.4): the DAG consensus graph engine lives in
+native/dagcns.cpp.  Shared objects are compiled with g++ on first use and
+cached next to the sources under a name that carries a hash of the
+source, so a library is always built from the source beside it — never a
+stale build copied in with the tree.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
 
@@ -19,16 +22,28 @@ _NATIVE = os.path.join(_ROOT, "native")
 _CACHE: dict[str, ctypes.CDLL] = {}
 
 
-def build_and_load(name: str) -> ctypes.CDLL:
-    if name in _CACHE:
-        return _CACHE[name]
-    src = os.path.join(_NATIVE, f"{name}.cpp")
-    so = os.path.join(_NATIVE, f"lib{name}.so")
-    if not os.path.exists(so) or os.path.getmtime(so) < os.path.getmtime(src):
-        cmd = ["g++", "-O2", "-shared", "-fPIC", "-std=c++17", "-o", so, src]
+def lib_path(name: str, native_dir: str = _NATIVE) -> str:
+    """Shared-object path for native_dir/<name>.cpp, keyed on its content."""
+    with open(os.path.join(native_dir, f"{name}.cpp"), "rb") as fh:
+        digest = hashlib.sha256(fh.read()).hexdigest()[:16]
+    return os.path.join(native_dir, f"lib{name}.{digest}.so")
+
+
+def build_and_load(name: str, native_dir: str = _NATIVE) -> ctypes.CDLL:
+    key = os.path.join(native_dir, name)
+    if key in _CACHE:
+        return _CACHE[key]
+    so = lib_path(name, native_dir)
+    if not os.path.exists(so):
+        # build under a private name, then rename: concurrent builds
+        # (test workers) never load a half-written library
+        tmp = f"{so}.{os.getpid()}.tmp"
+        cmd = ["g++", "-O2", "-shared", "-fPIC", "-std=c++17", "-o", tmp,
+               os.path.join(native_dir, f"{name}.cpp")]
         subprocess.run(cmd, check=True, capture_output=True)
+        os.replace(tmp, so)
     lib = ctypes.CDLL(so)
-    _CACHE[name] = lib
+    _CACHE[key] = lib
     return lib
 
 

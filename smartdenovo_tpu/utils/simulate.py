@@ -41,37 +41,30 @@ def mutate_read(rng: np.random.Generator, seq: np.ndarray, err: float,
     coin = rng.random(n) < 0.5  # fair extend/shrink choice inside runs
     ins_bases = rng.integers(0, 4, size=n, dtype=np.int64)
     sub_shift = rng.integers(1, 4, size=n, dtype=np.int64)
-    out = []
-    prev = -1
-    for j in range(n):
-        c = int(seq[j])
-        x = r[j]
-        indel = x < p_del + p_ins
-        if indel and hp[j]:
-            # homopolymer length noise, symmetric extend/shrink
-            if coin[j]:
-                out.append(c)
-                out.append(c)
-                prev = c
-            else:
-                if c == prev:
-                    continue
-                out.append(c)
-                prev = c
-        elif x < p_del:
-            continue
-        elif indel:
-            out.append(int(ins_bases[j]))
-            out.append(c)
-            prev = c
-        elif x < p_del + p_ins + p_sub:
-            c = (c + int(sub_shift[j])) % 4
-            out.append(c)
-            prev = c
-        else:
-            out.append(c)
-            prev = c
-    return np.array(out, dtype=np.uint8)
+    c = seq.astype(np.int64)
+    indel = r < p_del + p_ins
+    hp_ev = indel & hp                      # homopolymer length noise
+    grow = hp_ev & coin                     # base emitted twice
+    shrink = hp_ev & ~coin                  # base dropped if it repeats
+    dele = ~hp_ev & (r < p_del)
+    ins = ~hp_ev & indel & ~dele            # random base, then the base
+    sub = ~indel & (r < p_del + p_ins + p_sub)
+    last = np.where(sub, (c + sub_shift) % 4, c)   # base written last
+    # every position but a deletion leaves its own base last in the
+    # output (a dropped repeat leaves an equal one), so the base before
+    # position j is the last base of the nearest earlier non-deletion
+    src = np.where(dele, -1, np.arange(n))
+    src = np.maximum.accumulate(src)
+    prev = np.full(n, -1, np.int64)
+    prev[1:] = np.where(src[:-1] >= 0, last[np.maximum(src[:-1], 0)], -1)
+    drop = dele | (shrink & (c == prev))
+    nout = np.where(grow | ins, 2, np.where(drop, 0, 1))
+    first = np.where(ins, ins_bases, last)  # first base each position writes
+    out = np.repeat(last, nout)
+    starts = np.cumsum(nout) - nout
+    two = nout == 2
+    out[starts[two]] = first[two]
+    return out.astype(np.uint8)
 
 
 def simulate_reads(
@@ -119,3 +112,23 @@ def write_sim_fasta(path: str, names: list[str], seqs: list[np.ndarray]) -> None
     with open(path, "w") as fh:
         for n, s in zip(names, seqs):
             write_fasta(fh, n, codes_to_seq(s))
+
+
+def bench_read_set(glen: int = 500_000, coverage: float = 15):
+    """The bench read set (bench.py): 500 kb genome, 15x, mean 9 kb, 13 %
+    error, seeds 2026/2027 — 819 reads, 7.5 Mb.  Returns (genome, names,
+    seqs)."""
+    genome = random_genome(np.random.default_rng(2026), glen)
+    names, seqs = simulate_reads(genome, coverage=coverage, mean_len=9000,
+                                 err=0.13, seed=2027)
+    return genome, names, seqs
+
+
+def ecoli_read_set(glen: int = 4_600_000, coverage: float = 18):
+    """The E. coli-scale read set (scripts/sim_ecoli.py): 4.6 Mb circular
+    genome, 18x, mean 9.5 kb, 13 % error — 8,354 reads, 82.8 Mb, the
+    scale of the upstream walkthrough.  Returns (genome, names, seqs)."""
+    genome = random_genome(np.random.default_rng(46_000_000), glen)
+    names, seqs = simulate_reads(genome, coverage=coverage, mean_len=9500,
+                                 err=0.13, seed=18_460, circular=True)
+    return genome, names, seqs

@@ -134,7 +134,7 @@ def _identity(a: str, b: str) -> float:
 def test_cns_golden_cross():
     """Our consensus on the reference .lay vs the binary's .cns.
 
-    Measured state (round 5, TPU + CPU): utg0 identity 0.99897 with 65
+    Measured state (round 5): utg0 identity 0.99897 with 65
     edit ops, ~80% in homopolymer context and balanced ins/del.  Both
     consensi are statistically identical against the simulation TRUTH
     (ours ~1297 vs the binary's ~1288 error bases in 46.6 kb,
